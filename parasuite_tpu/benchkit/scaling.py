@@ -3,10 +3,10 @@
 
 Runs the distributed align step (parallel.dist_align) over meshes of
 increasing size with a fixed per-device batch (weak scaling — the production
-regime for a bounded read-sharding job) and reports a JSON table. On a real
-pod slice the same harness runs across hosts (jax.distributed initialized by
-the caller); on one chip / CPU it still exercises the full collective path
-over virtual devices.
+regime for a bounded read-sharding job) and reports a JSON table. Across
+processes the same harness runs with jax.distributed initialized by the
+caller; on CPU it still exercises the full collective path over virtual
+devices.
 """
 
 from __future__ import annotations
@@ -55,4 +55,5 @@ def measure_scaling(didx, sprof, codes, lengths, cfg: AlignConfig,
                        "per_device": round(best / n, 1),
                        "efficiency": round(eff, 4)})
     return {"mode": "weak", "per_device_reads": per_device_reads,
-            "backend": jax.default_backend(), "points": points}
+            "backend": jax.default_backend(),
+            "device_kind": jax.devices()[0].device_kind, "points": points}

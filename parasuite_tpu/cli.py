@@ -333,9 +333,10 @@ def cmd_dist_align(args) -> int:
         merged by merge-shards (parallel.multihost);
       * --coordinator HOST:PORT --num-processes N --process-id I: a REAL
         jax.distributed SPMD process — global mesh over every process's
-        devices, profile counts psum'd in-step across hosts (over DCN on a
-        pod, Gloo on the CPU backend; SURVEY.md §4.4). Shard/manifest layout
-        is identical, so merge-shards works on either mode's output.
+        devices, profile counts psum'd in-step across processes (NCCL
+        between GPUs, Gloo on the CPU backend; SURVEY.md §4.4). Processes
+        sharing this host take one GPU each. Shard/manifest layout is
+        identical, so merge-shards works on either mode's output.
     """
     from parasuite_tpu.utils.runlog import RunLog
 
@@ -429,7 +430,7 @@ def cmd_combine(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="parasuite_tpu",
-        description="TPU-native PAR-CLIP read-analysis toolkit")
+        description="PAR-CLIP read-analysis toolkit")
     sub = ap.add_subparsers(dest="tool", required=True)
 
     p = sub.add_parser("index", help="build reference index")
@@ -570,7 +571,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from parasuite_tpu.utils.jaxcache import enable_compile_cache
+
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -31,20 +31,19 @@ class AlignConfig:
     batch_size: int = 1024           # reads per device batch (B)
 
     # --- seeding (k-mer hash index; SURVEY.md §7 "Seeding") ---
-    kmer_size: int = 12              # k (k=11 measured WORSE: random-hit
-                                     # crowding evicts true diagonals from
-                                     # top-C — SWEEP_TWOPASS_r03.jsonl)
+    kmer_size: int = 12              # k (k=11 was less sensitive: random-
+                                     # hit crowding evicts true diagonals
+                                     # from top-C)
     max_seeds: int = 7               # seeds per read at offsets s*stride
     seed_stride: int = 6             # offset step between seeds. The 7/6
                                      # overlapping layout is the decided
                                      # operating point (BASELINE.md
                                      # "Sensitivity operating point"):
                                      # sensitivity 0.9916 vs 0.9873 for the
-                                     # non-overlapping 4/12 layout at ~15%
-                                     # device throughput cost; an error must
-                                     # dirty every one of 7 windows to hide
-                                     # a locus. 4/12 (max_seeds=4,
-                                     # seed_stride=0) remains the speed point
+                                     # non-overlapping 4/12 layout; an error
+                                     # must dirty every one of 7 windows to
+                                     # hide a locus. 4/12 (max_seeds=4,
+                                     # seed_stride=0) does less device work
     seed_placement: str = "adaptive" # "adaptive": per-read stride
                                      # max(1, (len-k)//(max_seeds-1)) —
                                      # spreads the max_seeds windows evenly
@@ -65,21 +64,20 @@ class AlignConfig:
                                      # when > 0, reads the primary pass leaves
                                      # UNMAPPED retry through a second device
                                      # pass seeded at this smaller k (same
-                                     # scoring/DP; pipeline/align.py
-                                     # _apply_rescue). Targets the 36bp tail
-                                     # where 1% of stress-model reads have no
-                                     # error-free 12-mer (SWEEP_LENGTHS_r04:
-                                     # seeding-information ceiling 0.9898).
+                                     # scoring/DP; AlignerEngine.
+                                     # _dispatch_rescue). Targets the 36bp
+                                     # tail where 1% of stress-model reads
+                                     # have no error-free 12-mer (seeding-
+                                     # information ceiling 0.9898).
                                      # 0 = off (the default operating point
                                      # is unchanged and bit-identical)
     rescue_seeds: int = 13           # seeds per read in the rescue pass
                                      # (only with rescue_kmer > 0): the
-                                     # rescue batch is a few % of reads and
-                                     # its cost is dispatch-latency-bound,
-                                     # so denser placement is nearly free
-                                     # there — 13 seeds at stride
-                                     # (36-11)//12 = 2 approximates
-                                     # all-offset coverage on 36bp reads
+                                     # rescue batch is a few % of reads, so
+                                     # denser placement costs little there
+                                     # — 13 seeds at stride (36-11)//12 = 2
+                                     # approximates all-offset coverage on
+                                     # 36bp reads
 
     # --- extension (banded affine-gap DP; SURVEY.md §7 "Extension/scoring") ---
     band_width: int = 5              # W: max net indel; band = 2W+1 diagonals
@@ -125,10 +123,6 @@ class AlignConfig:
     chrom_spacer: int = 256          # N bases packed between chroms (> L + 2W,
                                      # so no alignment window straddles chroms)
     seed: int = 0                    # PRNG seed for simulation
-    extend_impl: str = "auto"        # extension stage: jnp | pallas | auto
-                                     # (auto = pallas on TPU backends)
-    select_impl: str = "auto"        # candidate-select stage: jnp | pallas |
-                                     # auto (auto = pallas on TPU backends)
 
     def __post_init__(self) -> None:
         if self.chrom_spacer < self.max_read_len + 2 * self.band_width:
@@ -147,16 +141,14 @@ class AlignConfig:
                              "[6, kmer_size)")
         if self.rescue_kmer and self.rescue_seeds < 1:
             raise ValueError("rescue_seeds must be >= 1")
-        # the Pallas kernel ships per-base scores as int8 (ops/pallas_extend)
+        # the packed wire's int16 score holds |score| <= 127 per base x 255
+        # bases (ops/aligner.PackedResult)
         for f in ("match_score", "mismatch_score", "n_score",
                   "profile_min_score", "profile_max_score"):
             v = getattr(self, f)
             if not (-128 <= v <= 127):
-                raise ValueError(f"{f}={v} does not fit the kernel's int8 "
-                                 "score feed")
-        if self.band > 16:
-            raise ValueError("band (2*band_width+1) exceeds the kernel's "
-                             "16-sublane band tile")
+                raise ValueError(f"{f}={v} exceeds the per-base score range "
+                                 "[-128, 127]")
 
     @property
     def stride(self) -> int:

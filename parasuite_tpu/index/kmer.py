@@ -1,8 +1,8 @@
-"""Dense k-mer hash index — the TPU-native seeding structure.
+"""Dense k-mer hash index — the device seeding structure.
 
 Replaces BWA's BWT/FM-index + occ tables (upstream bwtindex.c / bwt.c;
 SURVEY.md §2 components 5-6). Rationale (SURVEY.md §7 "Design stance"): FM
-backward search is a pointer-chasing DFS, hostile to XLA/TPU; a dense k-mer
+backward search is a pointer-chasing DFS, hostile to XLA; a dense k-mer
 bucket table turns seeding into two flat gathers:
 
     hits(code) = positions[bucket_starts[code] : bucket_starts[code + 1]]

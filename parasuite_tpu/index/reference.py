@@ -1,6 +1,6 @@
 """Packed multi-chromosome reference.
 
-TPU-native equivalent of BWA's packed 2-bit reference (upstream bntseq.c .pac
+Device-friendly equivalent of BWA's packed 2-bit reference (upstream bntseq.c .pac
 / .ann files; SURVEY.md §2 component 5). Differences by design:
 
 - codes stay one-byte int8 (0..4 incl. N) rather than 2-bit-packed: the

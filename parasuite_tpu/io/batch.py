@@ -1,6 +1,6 @@
 """Fixed-shape read batches.
 
-TPU/XLA requires static shapes (SURVEY.md §7): reads are padded to
+XLA requires static shapes (SURVEY.md §7): reads are padded to
 cfg.max_read_len and batches to cfg.batch_size. Padding reads have length 0
 and are masked out everywhere downstream. Names stay host-side (they never
 touch the device; SAM emission re-joins them by read index).

@@ -3,7 +3,7 @@
 Reference equivalent: htsjdk FASTQ parsing inside the Java toolkit
 (SURVEY.md §2 component 9). Here parsing is a host-side streaming pass that
 emits ReadBatch objects sized for the device (pad-to-L, pad-to-B), which is
-the contract the TPU pipeline needs.
+the contract the device pipeline needs.
 
 A C++ fast path (native/parasuite_native) can replace the Python tokenizer;
 the Python version is the always-available fallback with identical output.

@@ -1,6 +1,6 @@
 // parasuite_native — host-side C++ fast paths.
 //
-// TPU-native replacement for the reference's native index-construction and
+// Replacement for the reference's native index-construction and
 // record-parsing code (upstream BWA bwtindex.c/is.c build the BWT/suffix
 // array in C; SURVEY.md §2 components 5 and 9). The device consumes a dense
 // k-mer bucket index instead of a BWT, so the native job here is the

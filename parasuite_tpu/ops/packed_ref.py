@@ -1,15 +1,13 @@
-"""3-bit packed reference words — the TPU gather-minimizing ref layout.
+"""3-bit packed reference words — a gather-minimizing reference layout.
 
-Random access into the reference (candidate windows in the extension stage,
-ungapped-NM re-checks in finalize) is the pipeline's dominant cost on TPU:
-XLA element gathers run at ~60k elements/ms on v5e, so every fetched int32
-matters. Packing 10 bases at 3 bits each (codes 0-3 = ACGT, 4 = N) into one
-int32 word cuts the gathered element count 10x vs int8 bases and — unlike the
-2-bit+nmask split it replaced — needs a single gather stream instead of two.
+Random access into the reference (ungapped-NM re-checks in finalize) is done
+by element gathers. Packing 10 bases at 3 bits each (codes 0-3 = ACGT, 4 = N)
+into one int32 word cuts the gathered element count 10x vs int8 bases and
+needs a single gather stream (a 2-bit + N-mask split would need two).
+Whether this pays on a GPU is not measured yet.
 
-Unpacking is pure VPU arithmetic (variable shifts); the only non-shift cost is
-the base//10 decomposition, which is done once per window on the XLA side and
-carried incrementally (+1 with carry) inside the Pallas kernel.
+Unpacking is integer arithmetic (variable shifts); the only non-shift cost
+is the base//10 decomposition, done once per window.
 """
 
 from __future__ import annotations

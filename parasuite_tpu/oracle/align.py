@@ -6,7 +6,7 @@ reference mounts, reference-concordance calibration happens HERE first
 (SURVEY.md §7 "Hard parts" #1) and the kernels follow automatically via the
 parity tests.
 
-Alignment model (TPU-shaped, mirrored by ops/):
+Alignment model (fixed-shape, mirrored by ops/):
   * seeding: k-mer seeds at read offsets s*cfg.stride (default stride = k,
     i.e. non-overlapping; smaller strides overlap seeds), looked up in the
     dense KmerIndex; seeds whose k-mer occurs > cfg.max_occ times are skipped

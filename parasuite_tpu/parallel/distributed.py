@@ -1,12 +1,12 @@
-"""Real multi-process execution: jax.distributed + in-step DCN collectives.
+"""Real multi-process execution: jax.distributed + in-step collectives.
 
 SURVEY.md §4.4 prescribes "N local processes, jax.distributed.initialize with
 local coordinator" as the 2-host test vehicle; BASELINE.json config 5 requires
 >=2-host measurement points. parallel/multihost.py simulates hosts with
 independent subprocesses and merges count matrices file-side; THIS module is
-the genuine article: one SPMD process per host, a global mesh over every
-process's devices, and the error-profile count matrix psum'd IN-STEP across
-the 'data' axis (over DCN on a real pod, over Gloo on the CPU backend —
+the genuine article: one SPMD process per host (or per card), a global mesh
+over every process's devices, and the error-profile count matrix psum'd
+IN-STEP across the 'data' axis (NCCL between GPUs, Gloo on the CPU backend —
 tests/test_distributed.py runs 2 real processes and pins the psum'd counts
 and merged SAM to the 1-process run).
 
@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import socket
 from pathlib import Path
 
 import numpy as np
@@ -33,13 +35,32 @@ from parasuite_tpu.parallel.dist_align import make_dist_align_step
 from parasuite_tpu.utils.runlog import NULL_LOG
 
 
+def local_device_ids(coordinator: str, num_processes: int,
+                     process_id: int) -> list[int] | None:
+    """Card of this process when all processes share this host: process i
+    takes GPU i, since a JAX process that saw every card would reserve
+    memory on each. None (JAX's default) for one process, the CPU backend,
+    a launcher that already pinned CUDA_VISIBLE_DEVICES, or a remote
+    coordinator."""
+    if (num_processes < 2
+            or os.environ.get("JAX_PLATFORMS", "").startswith("cpu")
+            or "CUDA_VISIBLE_DEVICES" in os.environ):
+        return None
+    host = coordinator.rsplit(":", 1)[0]
+    if host not in ("localhost", "127.0.0.1", socket.gethostname()):
+        return None
+    return [process_id]
+
+
 def initialize(coordinator: str, num_processes: int, process_id: int) -> None:
     """jax.distributed.initialize wrapper (call before any device use)."""
     import jax
 
-    jax.distributed.initialize(coordinator_address=coordinator,
-                               num_processes=num_processes,
-                               process_id=process_id)
+    jax.distributed.initialize(
+        coordinator_address=coordinator, num_processes=num_processes,
+        process_id=process_id,
+        local_device_ids=local_device_ids(coordinator, num_processes,
+                                          process_id))
 
 
 def _local_view(arr) -> np.ndarray:

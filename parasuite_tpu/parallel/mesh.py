@@ -4,8 +4,7 @@ The workload's parallel structure: reads are embarrassingly data-parallel,
 the index is replicated (or chromosome-sharded for >int32 genomes —
 parallel/shards.py), and the only cross-device traffic is a psum of the tiny
 [L, 4, 4] profile count matrix plus final gathers. A 1-D 'data' mesh over all
-chips (ICI intra-slice, DCN across hosts via jax.distributed) is therefore
-the whole story; there is no TP/PP/SP analogue in this non-neural pipeline
+devices (across hosts via jax.distributed) is therefore the whole story; there is no TP/PP/SP analogue in this non-neural pipeline
 (SURVEY.md §2 component 12 spells this out).
 """
 
@@ -24,8 +23,9 @@ def local_device_count() -> int:
 def make_mesh2(n_data: int, n_index: int, data_axis: str = "data",
                index_axis: str = "index") -> Mesh:
     """2-D mesh: read-batch parallelism x chromosome-sharded index
-    (parallel/shards.py). Lay index on the fastest-varying (intra-host ICI)
-    axis: the per-read cross-shard merge all_gathers tiny tuples every batch,
+    (parallel/shards.py). The cards of one host are joined all to all, so
+    the layout follows the algorithm alone: index is the minor axis because
+    the per-read cross-shard merge all_gathers tiny tuples every batch,
     while the data axis only psums profile matrices at the end."""
     devs = jax.devices()
     need = n_data * n_index
@@ -39,8 +39,8 @@ def make_mesh2(n_data: int, n_index: int, data_axis: str = "data",
 def make_mesh(n_devices: int | None = None, axis_name: str = "data") -> Mesh:
     """1-D data-parallel mesh over the first n devices (default: all).
 
-    Multi-host: call jax.distributed.initialize() first; jax.devices() then
-    spans the pod slice and the same mesh covers every host's chips.
+    Multi-process: call jax.distributed.initialize() first; jax.devices()
+    then spans every process's devices and the same mesh covers them all.
     """
     devs = jax.devices()
     if n_devices is not None:

@@ -13,15 +13,12 @@ is then:
     and the merge restores global batch order (determinism tests
     SURVEY.md §4.5, enforced byte-exactly by tests/test_multihost.py);
   * profile counts: an integer matrix sum (the psum equivalent when run
-    outside a jax.distributed pod; on a real pod parallel.dist_align does it
-    in-step over DCN);
+    outside jax.distributed; parallel.distributed does it in-step);
   * clusters: called once on the merged SAM (they need global context).
 
-On a real multi-host TPU pod: call jax.distributed.initialize() first, run
-one process per host with host_index = jax.process_index(), and the same
-code paths apply. The local-simulation driver (run_local_hosts) spawns N
-subprocesses to exercise the exact per-host code on one machine — the test
-strategy SURVEY.md §4.4 prescribes.
+The local launcher (run_local_hosts) spawns N subprocesses to exercise the
+exact per-host code on one machine — the test strategy SURVEY.md §4.4
+prescribes — each on its own GPU when the machine has them.
 """
 
 from __future__ import annotations
@@ -110,16 +107,50 @@ def merge_host_outputs(ref, out_prefix, out_sam, n_hosts: int,
     return n_records, profile
 
 
+def _gpu_ids() -> list[str]:
+    """Cards this process may hand out (CUDA_VISIBLE_DEVICES, else every
+    card nvidia-smi lists; none on a machine without one). Asks no JAX, so
+    the caller never opens a card itself."""
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if vis is not None:
+        return [d.strip() for d in vis.split(",") if d.strip()]
+    try:
+        out = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return []
+    return [str(i) for i, line in enumerate(
+        ln for ln in out.splitlines() if ln.startswith("GPU "))]
+
+
+def host_envs(n_hosts: int, env: dict) -> list[dict]:
+    """One environment per host process: each child gets its own card
+    through CUDA_VISIBLE_DEVICES (a JAX process reserves most of a card's
+    memory, so two cannot share one). CPU-backend children are not pinned.
+    Raises when the machine has cards but fewer than n_hosts."""
+    if env.get("JAX_PLATFORMS", "").startswith("cpu"):
+        return [dict(env) for _ in range(n_hosts)]
+    ids = _gpu_ids()
+    if not ids:
+        return [dict(env) for _ in range(n_hosts)]
+    if len(ids) < n_hosts:
+        raise RuntimeError(f"{n_hosts} host processes need one GPU each; "
+                           f"this machine offers {len(ids)}")
+    return [{**env, "CUDA_VISIBLE_DEVICES": ids[h]} for h in range(n_hosts)]
+
+
 def run_local_hosts(index_prefix, fastq, out_prefix, n_hosts: int,
                     cfg: AlignConfig, extra_args: list | None = None,
                     timeout: int = 1800):
     """Spawn n_hosts subprocesses, each running one host shard via the CLI
-    (SURVEY.md §4.4 multi-host-without-a-cluster)."""
+    (SURVEY.md §4.4 multi-host-without-a-cluster), one card each."""
     procs = []
     repo = Path(__file__).resolve().parents[2]
+    base = dict(os.environ)
+    base["PYTHONPATH"] = str(repo)
+    envs = host_envs(n_hosts, base)
     for h in range(n_hosts):
-        env = dict(os.environ)
-        env["PYTHONPATH"] = str(repo)
+        env = envs[h]
         argv = [sys.executable, "-m", "parasuite_tpu.cli", "dist-align",
                 str(index_prefix), str(fastq), str(out_prefix),
                 "--host-index", str(h), "--n-hosts", str(n_hosts)]

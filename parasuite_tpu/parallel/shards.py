@@ -27,15 +27,16 @@ ShardedIndex.slabs(cfg) enforces it (raises on mismatch).
 The shard axis composes with the data axis: a 2-D ('data', 'index') mesh runs
 read-batch parallelism and index parallelism together (make_sharded_step).
 
-Equality contract (measured at 2x100 Mbp, BENCH_SHARDS_SCALE_r05.json):
-bit-equality with the replicated path holds while the replicated per-read
-candidate list has headroom (tests/test_shards.py pins it). On repeat-
-crowded references the replicated list saturates (n_candidates == 2C) and
-top-C selection evicts true diagonals; each shard keeps its own top-C, so
+Equality contract: bit-equality with the replicated path holds while the
+replicated per-strand candidate lists have headroom (tests/test_shards.py
+pins it). On repeat-crowded references a strand's list fills up (C
+candidates) and top-C selection evicts diagonals; each shard keeps its own
+top-C, so
 the sharded union holds up to S*C candidates and strictly DOMINATES the
-replicated result: a superset of mapped reads, never a lower score, equal-
-score winners identical, X0/X1 counts that can only grow (slightly lower —
-more accurate — MAPQ on reads with newly-retained equal hits).
+replicated result: a superset of mapped reads, never a lower score, X0/X1
+counts that can only grow (slightly lower — more accurate — MAPQ on reads
+with newly-retained equal hits), and the same winner wherever score and X0
+agree (a newly retained equal-score twin can win the position tie-break).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ Reference mechanism: PARA-suite aligns reads against genome and transcriptome,
 projects transcript-space hits back to genomic coordinates through the exon
 structure, and keeps the best record per read in a merged BAM.
 
-TPU-native design: transcripts are packed as extra "chromosomes"
+Design: transcripts are packed as extra "chromosomes"
 (name prefix "tx::") into ONE PackedReference, so a single index and a single
 device align pass covers both spaces — no second pipeline. Projection back to
 genome is a host-side exon-table walk (vectorized cumulative-length

@@ -138,7 +138,7 @@ def test_batch_size_independence(device_state, tiny_ref, tiny_index, small_cfg):
 def test_packed_wire_path_bit_identical(device_state, tiny_ref, tiny_index,
                                         small_cfg):
     """align_device_packed (2-bit codes + N bitmask up, PackedResult v2
-    down — the tunnel-bandwidth fast path) must reproduce align_batch
+    down — the streaming fast path) must reproduce align_batch
     bit-exactly, including the fused profile-count matrix."""
     from conftest import sample_reads
 

@@ -8,8 +8,11 @@ from parasuite_tpu import native
 from parasuite_tpu.index.kmer import KmerIndex
 from parasuite_tpu.io.fastq import write_fastq
 
-pytestmark = pytest.mark.skipif(not native.available(),
-                                reason="native library not built")
+
+@pytest.fixture(autouse=True)
+def _needs_native():
+    if not native.available():
+        pytest.skip("native library not built")
 
 
 def test_kmer_index_parity(tiny_ref, small_cfg):

@@ -12,7 +12,7 @@ Three measured claims that toy/uniform references cannot support:
   (c) is tools/bench_shards_scale.py (2-D chromosome-sharded path on the
       virtual CPU mesh at 2x100 Mbp).
 
-Writes BENCH_GENOME_r05.json-shaped output on stdout (one JSON line).
+Writes one JSON line on stdout.
 
     timeout 7200 python tools/bench_genome.py            # both worlds
     PARASUITE_GENOME_PART=a|b                            # one world
@@ -29,7 +29,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", str(REPO / ".jax_cache"))
+from parasuite_tpu.utils.jaxcache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 

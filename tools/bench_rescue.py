@@ -1,6 +1,6 @@
 """Two-tier seeding rescue measurement at 36 bp (VERDICT r4 weak #5 /
 next-round #8): the iid-conversion stress model at L=36 measured 0.9771
-sensitivity in SWEEP_LENGTHS_r04 against a measured seeding-information
+sensitivity in the round-4 length sweep against a measured seeding-information
 ceiling of 0.9898 (1.02% of reads have no error-free 12-mer). This bench
 answers: does config.rescue_kmer=10 recover that tail, and at what e2e
 cost? Done criterion: >=0.985 at <10% e2e cost, or a committed negative
@@ -21,7 +21,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", str(REPO / ".jax_cache"))
+from parasuite_tpu.utils.jaxcache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 

@@ -3,7 +3,7 @@
 Wraps the stage functions used by pipeline.stream.streaming_align with
 accumulating timers and runs a real streaming pass on the current backend.
 Per-stage numbers are per-THREAD busy time (the pipeline overlaps stages, so
-the slowest stage bounds throughput — not the sum). Run on TPU:
+the slowest stage bounds throughput — not the sum). Run on the GPU:
 
     timeout 1200 python tools/profile_e2e.py [n_reads]
 """
@@ -17,7 +17,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", str(REPO / ".jax_cache"))
+from parasuite_tpu.utils.jaxcache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 

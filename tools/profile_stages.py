@@ -13,14 +13,14 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", str(REPO / ".jax_cache"))
+from parasuite_tpu.utils.jaxcache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax
-import numpy as np
 
 import bench
 from parasuite_tpu.ops import aligner as A
-from parasuite_tpu.ops import pallas_extend as PE
 from parasuite_tpu.ops.device_index import min_scores_host
 from parasuite_tpu.sim import simulate_reads
 
@@ -44,7 +44,6 @@ def main():
     codes, lengths, _ = simulate_reads(ref, n_reads, bench.READ_LEN, cfg,
                                        seed=2, tc_rate=0.12)
     ms = min_scores_host(lengths, cfg)
-    L = cfg.max_read_len
 
     stages = {}
 
@@ -60,34 +59,7 @@ def main():
     def s_select(diags):
         return A.select_candidates(diags, cfg)
 
-    @jax.jit
-    def s_prep(oriented, lengths, cand_diag):
-        return PE._pairs_layout(oriented, lengths, cand_diag, didx, sprof,
-                                cfg, L)
-
-    import jax.numpy as jnp
-
-    from parasuite_tpu.ops import packed_ref as PR
-
-    @jax.jit
-    def s_refwin(cand_diag):
-        # packed-word window gather (the new prep's only large gather)
-        W = cfg.band_width
-        G = didx.ref_seq.shape[0]
-        P = cand_diag.size
-        n_words = (L + PE.BAND_PAD + PR.BASES_PER_WORD - 1) \
-            // PR.BASES_PER_WORD + 1
-        words = PR.pack_reference(didx.ref_seq)
-        diag = jnp.clip(cand_diag, -(L + PE.BAND_PAD + 1), G).reshape(P)
-        base_q, _ = PR.split_base(diag - W)
-        return PR.gather_window_rows(words, base_q, n_words)
-
-    @jax.jit
-    def s_rows5(oriented, lengths):
-        return PE.build_score_rows(oriented, lengths, sprof, L)
-
-    pal = jax.jit(functools.partial(PE.extend_candidates_pallas, cfg=cfg))
-    jnp_ext = jax.jit(functools.partial(A.extend_candidates, cfg=cfg))
+    ext_fn = jax.jit(functools.partial(A.extend_candidates, cfg=cfg))
 
     @jax.jit
     def s_finalize(oriented, lengths, ms, cand_diag, cand_valid, ext):
@@ -97,22 +69,12 @@ def main():
     stages["orient"], oriented = timeit(s_orient, codes, lengths)
     stages["seed_lookup"], diags = timeit(s_seed, oriented, lengths)
     stages["select"], (cand_diag, cand_valid) = timeit(s_select, diags)
-    stages["extend_prep(gathers)"], _ = timeit(s_prep, oriented, lengths,
-                                               cand_diag)
-    stages["prep.refwin_gather"], _ = timeit(s_refwin, cand_diag)
-    stages["prep.rows5_build"], _ = timeit(s_rows5, oriented, lengths)
-    stages["extend_pallas_total"], ext = timeit(pal, oriented, lengths,
-                                                cand_diag, didx, sprof)
-    stages["extend_jnp_total"], _ = timeit(jnp_ext, oriented, lengths,
-                                           cand_diag, didx, sprof)
+    stages["extend"], ext = timeit(ext_fn, oriented, lengths, cand_diag,
+                                   didx, sprof)
     stages["finalize"], _ = timeit(s_finalize, oriented, lengths, ms,
                                    cand_diag, cand_valid, ext)
-
-    for impl in ("pallas", "jnp"):
-        full = jax.jit(functools.partial(
-            A.align_batch, cfg=cfg.replace(extend_impl=impl)))
-        stages[f"full_{impl}"], _ = timeit(full, didx, sprof, codes, lengths,
-                                           ms)
+    full = jax.jit(functools.partial(A.align_batch, cfg=cfg))
+    stages["full"], _ = timeit(full, didx, sprof, codes, lengths, ms)
 
     trace_dir = os.environ.get("PARASUITE_TRACE_DIR")
     if trace_dir:
@@ -126,7 +88,7 @@ def main():
           f"pairs={n_reads * 2 * cfg.max_candidates}")
     for k, v in stages.items():
         print(f"{k:24s}: {v*1e3:8.2f} ms")
-    print(f"full_pallas throughput  : {n_reads / stages['full_pallas']:,.0f} reads/s")
+    print(f"full throughput         : {n_reads / stages['full']:,.0f} reads/s")
 
 
 if __name__ == "__main__":

@@ -24,7 +24,9 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", str(REPO / ".jax_cache"))
+from parasuite_tpu.utils.jaxcache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import bench
 
